@@ -1,12 +1,12 @@
 """README workload: advection-diffusion with a Dirichlet hook
-(reference: /root/reference/README.md:110-143)."""
+(reference: upstream README.md:110-143)."""
 
 import numpy as np
 from _common import setup
 
 setup()
 
-from triflow_tpu import Model, Simulation, schemes  # noqa: E402
+from triflow_jax import Model, Simulation, schemes  # noqa: E402
 
 model = Model("k * dxxU - c * dxU", "U", ["k", "c"])
 

@@ -6,7 +6,7 @@ from _common import setup
 
 setup()
 
-from triflow_tpu import Model, Simulation  # noqa: E402
+from triflow_jax import Model, Simulation  # noqa: E402
 
 model = Model("k * dxxU - U * dxU", "U", "k")
 x = np.linspace(0, 10, 500, endpoint=False)

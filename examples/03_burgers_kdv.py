@@ -6,7 +6,7 @@ from _common import setup
 
 setup()
 
-from triflow_tpu import Model, Simulation  # noqa: E402
+from triflow_jax import Model, Simulation  # noqa: E402
 
 model = Model("-U * dxU + a * dxxU + b * dxxxU", "U", ["a", "b"])
 x = np.linspace(-10, 10, 500, endpoint=False)

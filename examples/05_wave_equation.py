@@ -6,7 +6,7 @@ from _common import setup
 
 setup()
 
-from triflow_tpu import Model, Simulation  # noqa: E402
+from triflow_jax import Model, Simulation  # noqa: E402
 
 model = Model(["c**2 * dxxu", "v"], ["v", "u"], "c")
 x = np.linspace(0, 10, 500, endpoint=False)
@@ -30,7 +30,7 @@ print(f"t = {t:g}; reflected pulse max = "
 
 # hyperbolic systems are non-stiff: the explicit Dormand-Prince 5(4) pair
 # (stages = stencil F evals only, no factorization) is the cheap option
-from triflow_tpu import schemes  # noqa: E402
+from triflow_jax import schemes  # noqa: E402
 
 explicit = Simulation(model, model.fields_template(x=x, v=v, u=u),
                       dict(periodic=False, c=1.0), hook=dirichlet,

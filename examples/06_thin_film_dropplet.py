@@ -7,7 +7,7 @@ from _common import setup
 
 setup()
 
-from triflow_tpu import Model, Simulation  # noqa: E402
+from triflow_jax import Model, Simulation  # noqa: E402
 
 model = Model(
     "dx((h**3 + h**2) * dx(-sigma * dxxh + alpha * (1 / h**3 - e / h**4)))",

@@ -8,7 +8,7 @@ from _common import setup
 
 setup()
 
-from triflow_tpu import Simulation, schemes, factory  # noqa: E402
+from triflow_jax import Simulation, schemes, factory  # noqa: E402
 
 Nx, Ny = 32, 24
 x = np.linspace(0, 10, Nx, endpoint=False)

@@ -7,8 +7,8 @@ from _common import setup
 
 setup()
 
-from triflow_tpu import Model, schemes  # noqa: E402
-from triflow_tpu.parallel import Ensemble  # noqa: E402
+from triflow_jax import Model, schemes  # noqa: E402
+from triflow_jax.parallel import Ensemble  # noqa: E402
 
 model = Model("k * dxxU - U * dxU", "U", "k")
 N, B = 256, 64
@@ -19,7 +19,7 @@ u0 = np.tile(np.cos(2 * np.pi * x / 10), (B, 1))
 ens = Ensemble(model, u0, [dict(k=float(k), periodic=True) for k in ks], x,
                scheme=schemes.RODASPR, tol=1e-4)
 # steps_per_call scans several output steps inside one device call,
-# amortizing the per-dispatch overhead (essential on tunneled devices)
+# amortizing the host sync per call
 t, u = ens.run(tmax=2.0, dt=0.5, steps_per_call=4)
 grad_max = np.abs(np.gradient(np.asarray(u[:, 0]), x, axis=-1)).max(axis=-1)
 print(f"t = {t:g}; {B} members; steepest front (k={ks[grad_max.argmax()]:.2f})"

@@ -10,8 +10,8 @@ setup()
 import jax  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-from triflow_tpu import Model, schemes  # noqa: E402
-from triflow_tpu.parallel.spatial import SpatialModel  # noqa: E402
+from triflow_jax import Model, schemes  # noqa: E402
+from triflow_jax.parallel.spatial import SpatialModel  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 ndev = len(jax.devices())

@@ -2,7 +2,7 @@
 (frames carry a ``member`` axis) and a one-call checkpoint/resume.
 
 The reference's sweep persistence is one container per pickled-model process
-(/root/reference/source_doc/source/user_guide.rst:125-138); here the sweep is
+(upstream source_doc/source/user_guide.rst:125-138); here the sweep is
 a single device computation, so it lands in a single container."""
 
 import tempfile
@@ -13,8 +13,8 @@ from _common import setup
 
 setup()
 
-from triflow_tpu import Model, retrieve_container, schemes  # noqa: E402
-from triflow_tpu.parallel import Ensemble  # noqa: E402
+from triflow_jax import Model, retrieve_container, schemes  # noqa: E402
+from triflow_jax.parallel import Ensemble  # noqa: E402
 
 model = Model("k * dxxU - U * dxU", "U", "k")
 N, B = 256, 16

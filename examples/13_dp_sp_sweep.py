@@ -13,8 +13,8 @@ setup()
 import jax  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-from triflow_tpu import Model, schemes  # noqa: E402
-from triflow_tpu.parallel import Ensemble  # noqa: E402
+from triflow_jax import Model, schemes  # noqa: E402
+from triflow_jax.parallel import Ensemble  # noqa: E402
 
 ndev = len(jax.devices())
 ne = 2 if ndev % 2 == 0 else 1

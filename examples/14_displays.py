@@ -1,6 +1,6 @@
 """Real-time displays: live field plots + a scalar probe with on-disk
 frame capture (reference notebook: examples/notebooks/displays.ipynb;
-display implementation /root/reference/triflow/plugins/displays.py:89-142).
+display implementation upstream triflow/plugins/displays.py:89-142).
 
 Demonstrates the three display modes:
 
@@ -25,7 +25,7 @@ from _common import setup
 
 setup()
 
-from triflow_tpu import (  # noqa: E402
+from triflow_jax import (  # noqa: E402
     Model,
     Simulation,
     display_fields,

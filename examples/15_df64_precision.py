@@ -1,13 +1,12 @@
-"""Reference-grade precision on f32 hardware: ``double="df64"``.
+"""Double-float precision from float32 arithmetic: ``double="df64"``.
 
 The reference computes in float64 natively (SuperLU solves,
-/root/reference/triflow/core/schemes.py:148-163; ``double=True`` default at
-model.py:148).  TPUs have no fast f64 — but ``double="df64"`` carries every
-value as a double-float (hi, lo) pair of f32s (~49-bit significand,
-ops/df64.py) and matches CPU float64 trajectories to ~1e-13 at a fraction
-of emulated-f64's cost.  ``df64_mixed_solve=1`` (recommended) runs the
-stage solves as f32-preconditioned df64-residual refinement: same accuracy,
-measured 14x emulated f64 at N=1e6 on a real chip (BASELINE.md §Precision).
+upstream triflow/core/schemes.py:148-163; ``double=True`` default at
+model.py:148).  ``double="df64"`` instead carries every value as a
+double-float (hi, lo) pair of f32s (~49-bit significand, ops/df64.py) and
+matches CPU float64 trajectories to ~1e-13.  ``df64_mixed_solve=1`` runs
+the stage solves as f32-preconditioned df64-residual refinement at the
+same accuracy.
 
 This example integrates the advection-diffusion cosine mode, for which the
 exact solution of the DISCRETE operator is known in closed form, and prints
@@ -19,7 +18,7 @@ from _common import setup
 
 setup()
 
-from triflow_tpu import Model, Simulation  # noqa: E402
+from triflow_jax import Model, Simulation  # noqa: E402
 
 N = 256
 x, dx = np.linspace(0, 10, N, endpoint=False, retstep=True)

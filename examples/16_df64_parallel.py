@@ -1,16 +1,11 @@
 """Precision AND parallelism together: df64 ensembles and df64 sharding.
 
 Round 4 made ``double="df64"`` compose with the parallel layer — the
-reference's unconditional f64 (/root/reference/triflow/core/model.py:148)
+reference's unconditional f64 (upstream triflow/core/model.py:148)
 holds no matter how a run is driven, and so does df64 here:
 
-* an ``Ensemble`` built from a df64 model runs double-float members; on
-  TPU it gets its OWN members-as-chunks plan (round 5): the f32 folded
-  kernels factor the rounded merged system as a preconditioner and
-  df64-residual passes recover full precision — measured 1.19e8 aggregate
-  cells/s at B=64 x N=1e5, 2x the vmapped fallback (the plain-f32 merged
-  fast path remains gated off; on this CPU harness the vmapped DF path
-  serves);
+* an ``Ensemble`` built from a df64 model runs double-float members
+  (vmapped over the member axis);
 * ``Simulation(..., mesh=...)`` shards DF state over the device mesh and
   runs MIXED-precision distributed stage solves: the f32 SPIKE
   factorization of the rounded system preconditions df64-residual
@@ -36,8 +31,8 @@ setup()
 import jax  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-from triflow_tpu import Model, Simulation, schemes  # noqa: E402
-from triflow_tpu.parallel import Ensemble  # noqa: E402
+from triflow_jax import Model, Simulation, schemes  # noqa: E402
+from triflow_jax.parallel import Ensemble  # noqa: E402
 
 # --- df64 parameter sweep -------------------------------------------------
 N, B = 96, 3

@@ -1,5 +1,5 @@
 """Shared helpers for the example scripts: run on CPU float64 by default
-(pass --tpu to use the default device in float32)."""
+(pass --device to use the default accelerator in float32)."""
 
 import os
 import sys
@@ -12,7 +12,7 @@ def setup(argv=None):
     argv = sys.argv if argv is None else argv
     import jax
 
-    if "--tpu" not in argv:
+    if "--device" not in argv:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
-    return "--tpu" in argv
+    return "--device" in argv

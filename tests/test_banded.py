@@ -1,7 +1,7 @@
 """Banded linear-algebra kernels vs scipy oracles.
 
 The reference delegates these solves to SuperLU (schemes.py:148-163, 553-557);
-here we verify the TPU-resident block-cyclic-reduction + Woodbury path against
+here we verify the device-resident PCR / chunked-SPIKE + Woodbury path against
 scipy sparse LU on random diagonally-dominant systems and on real model
 Jacobians."""
 
@@ -10,9 +10,9 @@ import pytest
 import scipy.sparse as sps
 import scipy.sparse.linalg as spla
 
-from triflow_tpu import Model
-from triflow_tpu.core.compiler import bands_to_csc
-from triflow_tpu.ops.banded import (
+from triflow_jax import Model
+from triflow_jax.core.compiler import bands_to_csc
+from triflow_jax.ops.banded import (
     axpy_bands,
     banded_matvec,
     factor_banded,
@@ -123,9 +123,9 @@ def test_batched_solve_matches_loop():
     """vmap over a leading ensemble axis must equal per-member solves."""
     import jax
 
-    # N=32/B=2: the property is shape-generic and this is trace-bound on
-    # the 1-core CI host (lane budget, BASELINE.md "Fast lane")
-    W, nvar, N, B = 5, 1, 32, 2
+    # B=3 matches no other axis (2P = 4 Woodbury columns here), so a
+    # batch/column axis mix-up cannot pass unnoticed
+    W, nvar, N, B = 5, 1, 32, 3
     bands = np.stack([random_bands(W, nvar, N, seed=s) for s in range(B)])
     rhs = np.random.RandomState(7).randn(B, nvar, N)
     batched = jax.vmap(lambda b, r: solve_banded(b, r, True))(bands, rhs)

@@ -4,8 +4,8 @@ uninterrupted run bit-for-bit (same scheme internal dt carried over)."""
 import numpy as np
 import pytest
 
-from triflow_tpu import Model, Simulation
-from triflow_tpu.utils.profiling import step_breakdown
+from triflow_jax import Model, Simulation
+from triflow_jax.utils.profiling import step_breakdown
 
 
 @pytest.fixture(scope="module")

@@ -1,12 +1,12 @@
 """Persistence-container roundtrips, mirroring
-/root/reference/tests/test_containers.py: metadata coercion, save='last',
+upstream tests/test_containers.py: metadata coercion, save='last',
 in-memory vs on-disk equality, retrieve in all isel modes, chunk merge."""
 
 import numpy as np
 import pytest
 
-from triflow_tpu import Container, Model, Simulation, retrieve_container
-from triflow_tpu.plugins.container import TimeSeries, coerce_attr
+from triflow_jax import Container, Model, Simulation, retrieve_container
+from triflow_jax.plugins.container import TimeSeries, coerce_attr
 
 
 @pytest.fixture(scope="module")
@@ -148,7 +148,7 @@ def test_retrieve_lazy(heat_model, tmp_path):
     path = str(tmp_path / "lazy" / simul.id)
 
     eager = retrieve_container(path)
-    from triflow_tpu.plugins.container import LazyTimeSeries
+    from triflow_jax.plugins.container import LazyTimeSeries
 
     lazy_all = retrieve_container(path, lazy=True)
     assert isinstance(lazy_all.data, LazyTimeSeries)

@@ -1,11 +1,11 @@
 """Headless display smoke tests, mirroring
-/root/reference/tests/test_displays.py: Agg rendering of fields/probe
+upstream tests/test_displays.py: Agg rendering of fields/probe
 displays, and the on-disk frame count must equal the number of steps."""
 
 import numpy as np
 import pytest
 
-from triflow_tpu import Model, Simulation, display_fields, display_probe
+from triflow_jax import Model, Simulation, display_fields, display_probe
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +64,7 @@ def test_display_throttle_every(heat_model, tmp_path):
 def test_display_async_drains_final_frame(heat_model):
     """asynchronous=True never blocks the loop; close() drains so the last
     drawn frame reflects the final state."""
-    from triflow_tpu.plugins.displays import Display
+    from triflow_jax.plugins.displays import Display
 
     simul = make_simul(heat_model, tmax=5)
     seen = []
@@ -86,7 +86,7 @@ def test_live_handle_updates_in_place(heat_model, monkeypatch):
     """The notebook live view re-publishes the figure through its display
     handle on every frame (the reference's DynamicMap/Pipe semantics,
     displays.py:43-73)."""
-    from triflow_tpu.plugins.displays import Display
+    from triflow_jax.plugins.displays import Display
 
     updates = []
 

@@ -3,9 +3,9 @@ Makefile:20): execute the >>> examples embedded in the public docstrings."""
 
 import doctest
 
-import triflow_tpu
-import triflow_tpu.core.model
-import triflow_tpu.core.simulation
+import triflow_jax
+import triflow_jax.core.model
+import triflow_jax.core.simulation
 
 
 def _run(module):
@@ -18,10 +18,10 @@ def _run(module):
 
 
 def test_model_doctests():
-    results = _run(triflow_tpu.core.model)
+    results = _run(triflow_jax.core.model)
     assert results.attempted >= 2
 
 
 def test_simulation_doctests():
-    results = _run(triflow_tpu.core.simulation)
+    results = _run(triflow_jax.core.simulation)
     assert results.attempted >= 5

@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from triflow_tpu import Model, schemes
-from triflow_tpu.parallel import Ensemble
+from triflow_jax import Model, schemes
+from triflow_jax.parallel import Ensemble
 
 
 def mesh_2d(ne=2, ns=4):

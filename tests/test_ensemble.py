@@ -6,8 +6,8 @@ import jax
 import numpy as np
 import pytest
 
-from triflow_tpu import Model, Simulation, schemes
-from triflow_tpu.parallel import Ensemble
+from triflow_jax import Model, Simulation, schemes
+from triflow_jax.parallel import Ensemble
 
 
 @pytest.fixture(scope="module")
@@ -128,205 +128,14 @@ def test_ensemble_scanned_steps_match_loop(burgers):
                        rtol=1e-12, atol=1e-14)
 
 
-@pytest.mark.slow
-def test_ensemble_merged_scanned_steps_match_loop(monkeypatch):
-    """Merged fixed-dt steps(n) — which flips to the groups-outer
-    whole-chunk kernel when ops/megastep applies — must match n
-    individual step() calls."""
-    monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
-    model = Model("-dxxU - dxxxxU - U * dxU", "U")
-    N, B = 256, 4
-    x = np.arange(N) * 0.5
-    rng = np.random.RandomState(9)
-    u0 = np.stack([np.cos(2 * np.pi * np.arange(N) / N * (3 + m))
-                   + 0.05 * rng.randn(N) for m in range(B)])
-    ens_a = Ensemble(model, u0, dict(periodic=True), x,
-                     scheme=schemes.RODASPR, time_stepping=False, tol=None)
-    assert ens_a._merged_plan is not None
-    ens_b = Ensemble(model, u0, dict(periodic=True), x,
-                     scheme=schemes.RODASPR, time_stepping=False, tol=None)
-    for _ in range(3):
-        ens_a.step(0.02)
-    ens_b.steps(3, 0.02)
-    assert np.isclose(ens_a.t, ens_b.t)
-    assert np.allclose(np.asarray(ens_a.u), np.asarray(ens_b.u),
-                       rtol=1e-11, atol=1e-12)
-
-
-@pytest.mark.slow
-def test_ensemble_merged_adaptive_whole_chunk(monkeypatch):
-    """Adaptive merged steps(n) — which flips to the in-kernel shared-dt
-    controller (ops/megastep.row_adaptive_scan_folded) when the whole
-    batch folds into one applicable group — must match the steps-outer
-    grid-kernel controller's decisions and trajectory."""
-    monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
-    model = Model("-dxxU - dxxxxU - U * dxU", "U", double=True)
-    N, B = 40, 8
-    x = np.arange(N) * 0.5
-    rng = np.random.RandomState(7)
-    u0 = np.stack([np.cos(2 * np.pi * np.arange(N) / N * (3 + m))
-                   + 0.05 * rng.randn(N) for m in range(B)])
-    ens_a = Ensemble(model, u0, dict(periodic=True), x,
-                     scheme=schemes.RODASPR, tol=1e-5)
-    assert ens_a._merged_plan is not None
-    assert ens_a._merged_parts[5] is not None, \
-        "whole-chunk adaptive kernel not selected"
-    ens_a.steps(3, 0.1)
-
-    monkeypatch.setenv("TRIFLOW_NO_MEGA", "1")
-    ens_b = Ensemble(model, u0, dict(periodic=True), x,
-                     scheme=schemes.RODASPR, tol=1e-5)
-    assert ens_b._merged_parts[5] is None
-    ens_b.steps(3, 0.1)
-    monkeypatch.delenv("TRIFLOW_NO_MEGA")
-
-    assert np.isclose(ens_a.t, ens_b.t)
-    assert np.allclose(np.asarray(ens_a.u), np.asarray(ens_b.u),
-                       rtol=1e-9, atol=1e-10)
-
-
-@pytest.mark.slow
-def test_ensemble_per_member_mega_matches_vmapped(monkeypatch):
-    """The in-kernel per-member controller (megastep per_member mode,
-    member-constant clock/dt/attempt slabs + member-segmented error max)
-    must reproduce the vmapped per-member stepper's trajectories and
-    attempt counts — they implement the same controller on different
-    layouts."""
-    monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
-    model = Model("k * dxxU", "U", "k")
-    N = 48
-    x = np.linspace(0, 10, N, endpoint=False)
-    u0 = np.cos(x * 2 * np.pi / 10)
-    ks = [0.02, 0.5, 20.0, 80.0]
-    pars = [dict(k=k, periodic=True) for k in ks]
-    u0b = np.tile(u0, (len(ks), 1))
-
-    ens_a = Ensemble(model, u0b, pars, x, scheme=schemes.RODASPR,
-                     tol=1e-6, per_member_dt=True)
-    assert ens_a._merged_plan is not None
-    assert ens_a._merged_parts[6] is not None, \
-        "per-member whole-chunk kernel not selected"
-    ens_a.step(0.5)
-    iters_a = ens_a.member_iters.copy()
-
-    monkeypatch.setenv("TRIFLOW_NO_MEGA", "1")
-    ens_b = Ensemble(model, u0b, pars, x, scheme=schemes.RODASPR,
-                     tol=1e-6, per_member_dt=True)
-    assert ens_b._merged_plan is None
-    ens_b.step(0.5)
-    monkeypatch.delenv("TRIFLOW_NO_MEGA")
-
-    assert np.isclose(ens_a.t, ens_b.t)
-    assert np.allclose(np.asarray(ens_a.u), np.asarray(ens_b.u),
-                       rtol=1e-7, atol=1e-8)
-    # identical controllers -> identical per-member attempt counts
-    assert np.array_equal(iters_a, ens_b.member_iters), \
-        (iters_a, ens_b.member_iters)
-
-
-@pytest.mark.slow
-def test_ensemble_merged_gated_off_for_compensated_refine(monkeypatch):
-    """Regression: the merged folded core has no Kahan accumulation and no
-    refinement hook — constructing an Ensemble with compensated=True or
-    refine>0 must fall back to the vmapped paths (which honor both), not
-    silently drop the options."""
-    monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
-    model = Model("-dxxU - dxxxxU - U * dxU", "U")
-    N, B = 1024, 4
-    x = np.arange(N) * 0.5
-    rng = np.random.RandomState(3)
-    u0 = np.stack([np.cos(2 * np.pi * np.arange(N) / N * (3 + m))
-                   + 0.05 * rng.randn(N) for m in range(B)])
-    base = Ensemble(model, u0, dict(periodic=True), x,
-                    scheme=schemes.RODASPR, time_stepping=False, tol=None)
-    assert base._merged_plan is not None
-    base.step(0.02)
-    for kw in (dict(compensated=True), dict(refine=1)):
-        ens = Ensemble(model, u0, dict(periodic=True), x,
-                       scheme=schemes.RODASPR, time_stepping=False,
-                       tol=None, **kw)
-        assert ens._merged_plan is None, kw
-        ens.step(0.02)
-        assert np.allclose(np.asarray(ens.u), np.asarray(base.u),
-                           rtol=1e-6, atol=1e-8), kw
-
-
-@pytest.mark.parametrize("periodic", [True, False])
-@pytest.mark.slow
-def test_ensemble_merged_members_as_chunks(monkeypatch, periodic):
-    """The members-as-chunks folded ensemble (ops/folded.py
-    make_ensemble_plan) must match the vmapped node-layout path: member
-    halo rings, solver decoupling and the periodic closure are member-local."""
-    monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
-    from triflow_tpu.ops import folded
-
-    model = Model("-dxxU - dxxxxU - U * dxU", "U")
-    N, B = 1024, 4
-    assert folded.plan_for_ensemble(model.backend, N, B) is not None
-    x = np.arange(N) * 0.5
-    rng = np.random.RandomState(7)
-    u0 = np.stack([np.cos(2 * np.pi * np.arange(N) / N * (3 + m))
-                   + 0.05 * rng.randn(N) for m in range(B)])
-
-    ens_m = Ensemble(model, u0, dict(periodic=periodic), x,
-                     scheme=schemes.RODASPR, time_stepping=False, tol=None)
-    assert ens_m._merged_plan is not None, "merged path must be active"
-    ens_m.step(0.02)
-
-    monkeypatch.setenv("TRIFLOW_NO_FOLDED", "1")
-    ens_v = Ensemble(model, u0, dict(periodic=periodic), x,
-                     scheme=schemes.RODASPR, time_stepping=False, tol=None)
-    ens_v.step(0.02)
-    monkeypatch.delenv("TRIFLOW_NO_FOLDED")
-
-    assert np.allclose(np.asarray(ens_m.u), np.asarray(ens_v.u),
-                       rtol=1e-10, atol=1e-10)
-
-
-@pytest.mark.slow
-def test_ensemble_merged_adaptive(monkeypatch):
-    """Merged adaptive: shared dt controlled by the max error over the
-    whole merged grid == max over members."""
-    monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
-    model = Model("-dxxU - dxxxxU - U * dxU", "U")
-    N, B = 1024, 4
-    x = np.arange(N) * 0.5
-    rng = np.random.RandomState(9)
-    u0 = np.stack([np.cos(2 * np.pi * np.arange(N) / N * (3 + m))
-                   + 0.05 * rng.randn(N) for m in range(B)])
-
-    ens_m = Ensemble(model, u0, dict(periodic=True), x,
-                     scheme=schemes.RODASPR, tol=1e-4)
-    assert ens_m._merged_plan is not None
-    ens_m.step(0.1)
-
-    # the scanned merged driver (fold once per call) must match step()
-    ens_s = Ensemble(model, u0, dict(periodic=True), x,
-                     scheme=schemes.RODASPR, tol=1e-4)
-    ens_s.steps(1, 0.1)
-    assert np.isclose(ens_s.t, ens_m.t)
-    assert np.allclose(np.asarray(ens_s.u), np.asarray(ens_m.u),
-                       rtol=1e-11, atol=1e-12)
-
-    monkeypatch.setenv("TRIFLOW_NO_FOLDED", "1")
-    ens_v = Ensemble(model, u0, dict(periodic=True), x,
-                     scheme=schemes.RODASPR, tol=1e-4)
-    ens_v.step(0.1)
-    monkeypatch.delenv("TRIFLOW_NO_FOLDED")
-
-    assert np.isclose(ens_m.t, ens_v.t)
-    assert np.allclose(np.asarray(ens_m.u), np.asarray(ens_v.u),
-                       rtol=1e-9, atol=1e-9)
-
-
 def test_per_member_adaptive_dt():
     """SURVEY.md §7 phase 7 / VERDICT r1 item 6: a heterogeneous-stiffness
     sweep under per-member dt control — every member meets its tolerance,
     the easy members' attempt counts stay far below the stiff member's
     (the shared-dt controller forces everyone to the stiffest pace), and
     the trajectories match per-member single runs."""
-    from triflow_tpu import Model, schemes
-    from triflow_tpu.parallel import Ensemble
+    from triflow_jax import Model, schemes
+    from triflow_jax.parallel import Ensemble
 
     model = Model("k * dxxU", "U", "k")
     N = 64
@@ -367,8 +176,8 @@ def test_per_member_adaptive_dt():
 @pytest.mark.slow
 def test_per_member_adaptive_scan_steps():
     """per_member_dt composes with the scanned multi-step driver."""
-    from triflow_tpu import Model, schemes
-    from triflow_tpu.parallel import Ensemble
+    from triflow_jax import Model, schemes
+    from triflow_jax.parallel import Ensemble
 
     model = Model("k * dxxU", "U", "k")
     N = 64
@@ -384,47 +193,11 @@ def test_per_member_adaptive_scan_steps():
     assert ens.member_iters.sum() > 0
 
 
-def test_group_plan_prefers_vmem_resident_groups(monkeypatch):
-    """The member-group cost model must split big batches into groups whose
-    per-step working set stays VMEM-resident (measured 4.5x at B=1024 x
-    N=1e5: one 410MB group spills to HBM), while small batches stay in a
-    single group (per-group launch overhead dominates otherwise)."""
-    monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
-    model = Model("-dxxU - dxxxxU - U * dxU", "U", double=False)
-    item = np.dtype(model.backend.dtype).itemsize
-    scheme = schemes.RODASPR(model, time_stepping=False, tol=None)
-
-    def pick(B, N):
-        # planner-only probe: a full Ensemble at B=1024 x N=1e5 would
-        # materialize ~1 GB of member state just to ask the host-side
-        # cost model a question (this test was 60 s of array traffic)
-        ens = object.__new__(Ensemble)
-        ens.B, ens.N, ens._scheme = B, N, scheme
-        picked = ens._pick_group_plan(model.backend)
-        assert picked is not None
-        return picked[0]
-
-    bg_big = pick(1024, 100_000)
-    assert 1 < bg_big < 1024, bg_big
-    # group state stays within the resident envelope (state rows x ~13);
-    # the budget is now derived from the runtime device (v5e fallback on
-    # the CPU test harness)
-    assert bg_big * 100_000 * item * 13 <= 2 * Ensemble._vmem_budget_bytes()
-    # small batch: one group (no pointless splitting)
-    assert pick(16, 100_000) == 16
-    # VERDICT r2 item 6: the plan adapts when the device budget changes —
-    # a tiny forced budget pushes the picker to smaller member groups
-    monkeypatch.setenv("TRIFLOW_VMEM_BUDGET_MB", "8")
-    bg_tiny_budget = pick(1024, 100_000)
-    monkeypatch.delenv("TRIFLOW_VMEM_BUDGET_MB")
-    assert bg_tiny_budget <= bg_big
-
-
 def test_ensemble_container_roundtrip(tmp_path):
     """attach_container persists the whole sweep with a member axis:
     data[var] retrieves as (T, B, N) and matches the stepped trajectory
     frame for frame (L5 persistence parity for the DP axis)."""
-    from triflow_tpu import retrieve_container
+    from triflow_jax import retrieve_container
 
     model = Model("k * dxxU", "U", "k", double=True)
     N, B = 32, 3
@@ -514,7 +287,7 @@ def test_ensemble_dirichlet_hook_matches_simulation():
     Dirichlet hook applies per attempt AND at output time, so each member
     reproduces a standalone Simulation of the same problem (and the final
     state has the boundary values enforced)."""
-    from triflow_tpu import Model
+    from triflow_jax import Model
 
     model = Model("k * dxxU - c * dxU", "U", ["k", "c"])
     N, B = 128, 3
@@ -555,8 +328,8 @@ def test_ensemble_recompute_target_false_per_member():
     per-member Ensemble controller — each member overshoots on its own
     internal grid and interpolates to the output time, matching a single
     scheme-level run with the same flag."""
-    from triflow_tpu import Model, schemes
-    from triflow_tpu.parallel import Ensemble
+    from triflow_jax import Model, schemes
+    from triflow_jax.parallel import Ensemble
 
     model = Model("k * dxxU", "U", "k")
     N = 64
@@ -586,8 +359,8 @@ def test_ensemble_recompute_target_false_shared_dt():
     """Shared-dt controller with identical members + recompute_target=False
     reduces exactly to the single-run interpolating controller (the max
     member error equals every member's error)."""
-    from triflow_tpu import Model, schemes
-    from triflow_tpu.parallel import Ensemble
+    from triflow_jax import Model, schemes
+    from triflow_jax.parallel import Ensemble
 
     model = Model("k * dxxU - U * dxU", "U", "k")
     N = 64
@@ -598,9 +371,6 @@ def test_ensemble_recompute_target_false_shared_dt():
     ens = Ensemble(model, np.tile(u0, (B, 1)), dict(k=1.0, periodic=True),
                    x, scheme=schemes.RODASPR, tol=tol,
                    recompute_target=False)
-    # the merged/megakernel path must have been gated off (it cannot carry
-    # the bracketing state)
-    assert ens._merged_plan is None
     t, u = ens.step(0.5)
     assert t == pytest.approx(0.5)
 
@@ -627,11 +397,10 @@ def test_ensemble_recompute_target_false_shared_dt():
 # ---------------------------------------------------------------------------
 
 def test_ensemble_df64_never_selects_f32_merged():
-    """Construction-time guard (r3 regression): a df64 Ensemble must not
-    pick the f32 merged/megakernel plan — that silently produced f32
-    physics in r3.  Cheap (no trajectory); the full vmapped-path parity
-    trajectory lives in test_ensemble_df64_matches_single_runs
-    (nightly; the merged df64 plan's parity test stays in the lane)."""
+    """Construction-time guard (r3 regression): a df64 Ensemble must carry
+    double-float member state — an f32 path silently produced f32 physics
+    in r3.  Cheap (no trajectory); the full parity trajectory lives in
+    test_ensemble_df64_matches_single_runs (nightly)."""
     N, B = 64, 3
     x = np.linspace(0, 10, N, endpoint=False)
     u0 = np.stack([np.cos(2 * np.pi * x / 10 * (i + 1))
@@ -639,18 +408,17 @@ def test_ensemble_df64_never_selects_f32_merged():
     pars = [dict(k=k, periodic=True) for k in (0.3, 0.5, 0.8)]
     model = Model("k * dxxU - U * dxU", "U", "k", double="df64")
     ens = Ensemble(model, u0, pars, x, scheme=schemes.ROS2)
-    assert ens._merged_plan is None
-    from triflow_tpu.ops.df64 import DF
+    from triflow_jax.ops.df64 import DF
     assert isinstance(ens.u, DF)
 
 
 @pytest.mark.slow
 def test_ensemble_df64_matches_single_runs():
     """An Ensemble built from a df64 model must run REAL double-float
-    physics: members match independent df64 scheme runs to <= 1e-12, the
-    f32 merged/megakernel path is never selected (r3's silent downgrade),
-    and the output genuinely differs from an f32 ensemble."""
-    from triflow_tpu.ops.df64 import DF
+    physics: members match independent df64 scheme runs to <= 1e-12 and
+    the output genuinely differs from an f32 ensemble (r3's silent
+    downgrade)."""
+    from triflow_jax.ops.df64 import DF
 
     N, B = 64, 3
     x = np.linspace(0, 10, N, endpoint=False)
@@ -661,9 +429,6 @@ def test_ensemble_df64_matches_single_runs():
     model = Model("k * dxxU - U * dxU", "U", "k", double="df64")
 
     ens = Ensemble(model, u0, pars, x, scheme=schemes.ROS2)
-    # the f32 folded/megakernel fast path silently produced f32 physics in
-    # r3 — it must never be selected for a df64 model
-    assert ens._merged_plan is None
     t, u = ens.run(tmax=0.5, dt=0.125)
     assert isinstance(u, DF)
 
@@ -707,76 +472,13 @@ def test_ensemble_df64_adaptive_per_member():
     assert np.abs(u1.to_float64() - u2.to_float64()).max() < 1e-7
 
 
-def test_ensemble_df64_merged_members_as_chunks(monkeypatch):
-    """The df64 members-as-chunks plan (VERDICT r4 missing #1): members
-    fold into one chunk system, stage solves run mixed-precision over the
-    merged folded layout (f32 folded preconditioner + matvec_df_folded
-    residual passes), and every member matches an independent single-grid
-    df64 run to <= 1e-12 — genuine double-float physics at merged-kernel
-    launch shape."""
-    monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
-    from triflow_tpu.ops.df64 import DF
-
-    N, B = 64, 3
-    x = np.linspace(0, 10, N, endpoint=False)
-    u0 = np.stack([np.cos(2 * np.pi * x / 10 * (i + 1))
-                   for i in range(B)])[:, None, :]
-    ks = [0.3, 0.5, 0.8]
-    pars = [dict(k=k, periodic=True) for k in ks]
-    model = Model("k * dxxU - U * dxU", "U", "k", double="df64")
-
-    ens = Ensemble(model, u0, pars, x, scheme=schemes.ROS2)
-    assert ens._merged_df_plan is not None     # the new path was selected
-    assert ens._merged_plan is None            # never the f32 merged path
-    t, u = ens.run(tmax=0.5, dt=0.125)
-    assert isinstance(u, DF)
-
-    scheme = schemes.ROS2(model)               # single-grid df64 oracle
-    for i in range(B):
-        t_, f_ = 0.0, model.fields_template(x=x, U=u0[i, 0])
-        for _ in range(4):
-            t_, f_ = scheme(t_, f_, 0.125, dict(k=ks[i], periodic=True))
-        d = np.abs(u.to_float64()[i, 0] - np.asarray(f_["U"])).max()
-        assert d < 1e-12, (i, d)
-
-
-@pytest.mark.slow
-def test_ensemble_df64_merged_adaptive(monkeypatch):
-    """Adaptive shared-dt df64 merged ensembles: the embedded error from
-    the merged DF step drives the generic controller (compensated clock),
-    landing in the single-run df64 accuracy class."""
-    monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
-
-    N, B = 64, 2
-    x = np.linspace(0, 10, N, endpoint=False)
-    u0 = np.stack([np.cos(2 * np.pi * x / 10 * (i + 1))
-                   for i in range(B)])[:, None, :]
-    pars = [dict(k=k, periodic=True) for k in (0.4, 0.9)]
-    model = Model("k * dxxU - U * dxU", "U", "k", double="df64")
-
-    ens = Ensemble(model, u0, pars, x, scheme=schemes.ROS3PRw, tol=1e-9)
-    assert ens._merged_df_plan is not None
-    t, u = ens.run(tmax=0.25, dt=0.125)
-    assert t == pytest.approx(0.25)
-
-    scheme = schemes.ROS3PRw(model, time_stepping=True, tol=1e-9,
-                             df64_mixed_solve=2)
-    for i, k in enumerate((0.4, 0.9)):
-        scheme._internal_dt = None
-        t_, f_ = 0.0, model.fields_template(x=x, U=u0[i, 0])
-        for _ in range(2):
-            t_, f_ = scheme(t_, f_, 0.125, dict(k=k, periodic=True))
-        d = np.abs(u.to_float64()[i, 0] - np.asarray(f_["U"])).max()
-        assert d < 1e-8, (i, d)
-
-
 def test_ensemble_df64_recompute_target_false():
     """df64 + ``recompute_target=False``: the per-member output
     interpolation must run in DF arithmetic (advisor r4 medium: a
     leaf-wise f32 lerp loses ~ulp(hi)/2 ~ 6e-8 into nowhere, silently
     degrading the carried df64 trajectory).  Each member matches a single
     scheme-level df64 run with the same flag to the df64 class."""
-    from triflow_tpu.ops.df64 import DF
+    from triflow_jax.ops.df64 import DF
 
     model = Model("k * dxxU", "U", "k", double="df64")
     N = 32

@@ -7,7 +7,7 @@ composition."""
 import numpy as np
 import pytest
 
-from triflow_tpu import Model, Simulation, schemes
+from triflow_jax import Model, Simulation, schemes
 
 
 @pytest.fixture(scope="module")
@@ -126,7 +126,7 @@ def test_erk_ctor_validation(heat_model):
 
 def test_erk_ensemble(heat_model):
     """DOPRI5 composes with the ensemble layer (vmap over members)."""
-    from triflow_tpu.parallel import Ensemble
+    from triflow_jax.parallel import Ensemble
 
     N, B = 64, 3
     x = np.linspace(0, 10, N, endpoint=False)
@@ -210,7 +210,7 @@ def test_erk_per_member_dt(heat_model):
     each member's internal clock follows its own stability/accuracy limit
     (dt ~ 1/k for explicit diffusion), so iteration counts spread with
     stiffness."""
-    from triflow_tpu.parallel import Ensemble
+    from triflow_jax.parallel import Ensemble
 
     N = 64
     x = np.linspace(0, 10, N, endpoint=False)

@@ -1,4 +1,4 @@
-"""Fields container semantics (mirrors /root/reference/tests/test_fields.py):
+"""Fields container semantics (mirrors upstream tests/test_fields.py):
 template/factory equivalence, uflat interleaving, fill roundtrip, pickle/copy,
 CSV export, 2D export rejection — plus pytree registration checks specific to
 the JAX rebuild."""
@@ -9,7 +9,7 @@ import jax
 import numpy as np
 import pytest
 
-from triflow_tpu import Model, factory, factory1D
+from triflow_jax import Model, factory, factory1D
 
 
 @pytest.fixture

@@ -1,7 +1,7 @@
 """Randomized-model fuzzing of the oracle triangle.
 
 The reference's test strategy hand-picks a few analytic models
-(/root/reference/tests/test_model.py, SURVEY.md §4); this suite generates a
+(upstream tests/test_model.py, SURVEY.md §4); this suite generates a
 seeded stream of random PDE systems — random variable counts, derivative
 orders, nonlinear products, per-node vs scalar parameters, both BC modes —
 and closes the triangle on every one of them:
@@ -16,10 +16,10 @@ Every case is deterministic (seed-parametrized) so failures reproduce.
 import numpy as np
 import pytest
 
-from triflow_tpu import Model
+from triflow_jax import Model
 
 
-# whole-module slow tier: interpret-mode kernel equivalence / physics
+# whole-module slow tier: the oracle-equivalence / physics
 # workloads are minutes-long on the virtual CPU mesh (CI fast lane skips
 # them; the full matrix runs nightly)
 pytestmark = pytest.mark.slow
@@ -100,7 +100,7 @@ def test_fuzz_oracle_triangle(seed):
     )
     # FD oracle: loose, dominated by finite-difference truncation of the
     # brute-force Jacobian (the reference uses the same 1e-2 tolerance,
-    # /root/reference/tests/test_model.py:49-50)
+    # upstream tests/test_model.py:49-50)
     assert np.allclose(J_approx, J_dense, rtol=1e-2, atol=1e-3 * jscale), (
         f"symbolic-vs-FD Jacobian mismatch for {eqs} (periodic={periodic})"
     )
@@ -111,7 +111,7 @@ def test_fuzz_theta_step_finite(seed):
     """A random stiff system survives one implicit theta step without
     producing non-finite values (solver robustness on arbitrary banded
     structure, not just the curated workloads)."""
-    from triflow_tpu import schemes
+    from triflow_jax import schemes
 
     eqs, dep_vars, rng = _random_system(seed)
     m = Model(eqs, dep_vars, PARS, compiler="jax")

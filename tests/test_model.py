@@ -1,13 +1,13 @@
 """Model-layer tests: the oracle triangle (compiled F vs np.gradient; symbolic
 J vs brute-force FD J vs dense J), API contract, upwind smoke, pickling —
 mirroring the reference test strategy
-(/root/reference/tests/test_model.py, see SURVEY.md §4)."""
+(upstream tests/test_model.py, see SURVEY.md §4)."""
 
 import numpy as np
 import pytest
 
-from triflow_tpu import Model
-from triflow_tpu.core.symbolic import centered_stencil_coefficients
+from triflow_jax import Model
+from triflow_jax.core.symbolic import centered_stencil_coefficients
 
 
 @pytest.fixture
@@ -91,7 +91,7 @@ def test_finite_diff_against_analytic(args):
 
 def test_stencil_coefficients_match_reference():
     """The generated weights must equal the reference's hand-written stencils
-    (/root/reference/triflow/core/model.py:401-439)."""
+    (upstream triflow/core/model.py:401-439)."""
     import sympy as sp
 
     half = sp.Rational(1, 2)

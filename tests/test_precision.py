@@ -5,10 +5,8 @@ BASELINE.md "Precision"): per-step representation/F-eval rounding
 random-walks to ~5e-6 over 2000 steps on a smooth problem and is
 Lyapunov-amplified on chaotic ones; it is NOT dominated by state-addition
 rounding (Kahan: no change) nor by solve inaccuracy (iterative refinement:
-no change) — both measured.  The 1e-8 target therefore requires f64, which
-the framework reaches on BOTH CPU and TPU: `double=True` routes the solver
-onto the XLA sweeps (the Pallas kernels are f32-gated) and the TPU f64
-trajectory matches CPU f64 to ~1e-12.
+no change) — both measured.  The 1e-8 target therefore requires f64
+(``double=True``) or double-float (``double="df64"``).
 
 These tests pin (a) the f32 envelope magnitude, (b) that the optional
 ``compensated``/``refine`` knobs run and stay inside the envelope, and
@@ -20,7 +18,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from triflow_tpu import Model, schemes
+from triflow_jax import Model, schemes
 
 
 def _advdiff_trajectory(double, steps=2000, N=1024, **scheme_kwargs):
@@ -83,9 +81,8 @@ def test_f64_meets_1e8_target():
 
     Measured here: RODASPR at tol=1e-12 lands ~8e-10 from exact — tighter
     than scipy/vode at atol=rtol=1e-13, which only reaches ~3e-7 on the
-    same problem (so vode cannot serve as the 1e-8 oracle).  On chaotic
-    KS the like-for-like f64 check is TPU-vs-CPU at ~1e-12 (BASELINE.md)."""
-    from triflow_tpu import Simulation
+    same problem (so vode cannot serve as the 1e-8 oracle)."""
+    from triflow_jax import Simulation
 
     model = Model("k * dxxU - c * dxU", "U", ["k", "c"])
     N = 256
@@ -120,7 +117,7 @@ def test_df64_arithmetic_under_jit():
     form."""
     import jax
 
-    from triflow_tpu.ops.df64 import DF
+    from triflow_jax.ops.df64 import DF
 
     rng = np.random.RandomState(0)
     k = DF.from_float64(0.05 * rng.randn(1, 96))
@@ -152,9 +149,9 @@ def test_df64_banded_solver_vs_scipy(W, nvar, N, periodic):
     import jax
     import scipy.sparse.linalg as spla
 
-    from triflow_tpu.core.compiler import bands_to_csc
-    from triflow_tpu.ops import banded_df as bdf
-    from triflow_tpu.ops.df64 import DF
+    from triflow_jax.core.compiler import bands_to_csc
+    from triflow_jax.ops import banded_df as bdf
+    from triflow_jax.ops.df64 import DF
 
     rng = np.random.RandomState(0)
     for (W, nvar, N, periodic) in [(W, nvar, N, periodic)]:
@@ -179,12 +176,10 @@ def test_df64_meets_1e8_target_ks():
     """VERDICT r2 item 1 'done' condition: a df64 KS trajectory matches the
     CPU-f64 trajectory to <= 1e-8 (measured ~1e-13 over 40 steps) while
     computing exclusively in paired-f32 arithmetic — reference-grade
-    precision (model.py:148 double=True) on f32-only hardware.  The same
-    pipeline measured 1.5e-13 vs CPU f64 on the REAL TPU chip (BASELINE.md
-    §Precision, round 3)."""
+    precision (model.py:148 double=True) from f32 arithmetic."""
     import jax
 
-    from triflow_tpu.ops.df64 import DF
+    from triflow_jax.ops.df64 import DF
 
     N, steps = 96, 40
     dt = 0.0625  # exactly representable in f32: both paths use the same dt
@@ -232,7 +227,7 @@ def test_df64_simulation_end_to_end():
     stay float64, device stepping runs on (hi, lo) f32 pairs, and the
     trajectory matches the exact discrete-operator solution to 1e-8 (same
     workload as test_f64_meets_1e8_target)."""
-    from triflow_tpu import Simulation
+    from triflow_jax import Simulation
 
     model = Model("k * dxxU - c * dxU", "U", ["k", "c"], double="df64")
     assert model.precision == "df64"
@@ -261,7 +256,7 @@ def test_df64_mixed_solve_accuracy():
     pass already reaches the full-df64 accuracy class (~1e-13 vs f64)."""
     import jax
 
-    from triflow_tpu.ops.df64 import DF
+    from triflow_jax.ops.df64 import DF
 
     N, steps, dt = 96, 20, 0.0625
     x = np.arange(N, dtype=np.float64) * 0.5
@@ -302,72 +297,11 @@ def test_df64_mixed_solve_accuracy():
     assert np.max(np.abs(v - ref)) < 1e-10
 
 
-@pytest.mark.slow
-def test_df64_mixed_solve_folded_preconditioner(monkeypatch):
-    """On TPU the mixed solve's f32 preconditioner routes through the
-    folded fast path (r4: the node-layout generic solve was the dominant
-    line of the df64 step — 12x 4.6 ms of a 71 ms step measured on the
-    v5e).  Interpret mode exercises that exact routing on CPU: the folded
-    preconditioner factors J32 from the ROUNDED state, and the df64
-    residual refinement must still land in the full-df64 accuracy class."""
-    import jax
-
-    from triflow_tpu.ops.df64 import DF
-
-    monkeypatch.setenv("TRIFLOW_PALLAS_INTERPRET", "1")
-    N, steps, dt = 64, 2, 0.0625
-    x = np.arange(N, dtype=np.float64) * 0.5
-    rng = np.random.RandomState(0)
-    u0 = (np.cos(2 * np.pi * np.arange(N) / N * 3)
-          + 0.1 * rng.randn(N))[None]
-
-    from triflow_tpu.ops import folded as fl
-
-    def run(double, **kw):
-        model = Model("-dxxU - dxxxxU - U * dxU", "U", double=double)
-        if double == "df64":
-            # the folded preconditioner must actually be selectable here
-            assert fl.plan_for_backend(model.backend, N) is not None
-        # ROS2 (2 stages, a third of the RODASPR trace): the routing
-        # property is scheme-independent and the interpret-mode pallas
-        # TRACING dominates this test every run (it is not XLA-cacheable)
-        scheme = schemes.ROS2(model, **kw)
-        fixed = scheme.device_fixed_step(periodic=True)
-        if double == "df64":
-            u = DF.from_float64(u0)
-            h = DF.from_float64(np.zeros((0, N)))
-            p = DF.from_float64(np.zeros((0, N)))
-            xx = DF.from_float64(x)
-            step = jax.jit(
-                lambda t, u: fixed(t, u, h, p, xx, jnp.float32(dt))[0])
-            for i in range(steps):
-                u = step(jnp.float32(i * dt), u)
-            return u.to_float64()[0]
-        dtype = model.backend.dtype
-        u = jnp.asarray(u0, dtype)
-        h = jnp.zeros((0, N), dtype)
-        p = jnp.zeros((0, N), dtype)
-        xx = jnp.asarray(x, dtype)
-        monkeypatch.setenv("TRIFLOW_NO_FOLDED", "1")   # f64 ref: XLA path
-        try:
-            step = jax.jit(
-                lambda t, u: fixed(t, u, h, p, xx, jnp.asarray(dt, dtype))[0])
-            for i in range(steps):
-                u = step(jnp.asarray(i * dt, dtype), u)
-        finally:
-            monkeypatch.delenv("TRIFLOW_NO_FOLDED")
-        return np.asarray(u[0], np.float64)
-
-    ref = run(True)
-    v = run("df64", df64_mixed_solve=1)
-    assert np.max(np.abs(v - ref)) < 1e-10
-
-
 def test_df64_dirichlet_hook():
     """Hooks on double-float state: the hook sees the hi component; entries
     it CHANGES get lo zeroed (exact Dirichlet scatter), unchanged entries
     keep their full pair (_DeviceProblem._apply_hook_df64)."""
-    from triflow_tpu import Simulation
+    from triflow_jax import Simulation
 
     model = Model("k * dxxU", "U", "k", double="df64")
     N = 64
@@ -410,8 +344,8 @@ def test_df64_hook_exact_enforcement_after_lo_drift():
     already there).  The perturbed-probe detection zeroes lo for every
     state-independent enforced entry; untouched entries keep their full
     (hi, lo) pair unchanged (core/schemes._apply_hook_df64)."""
-    from triflow_tpu.core import schemes as schemes_mod
-    from triflow_tpu.ops.df64 import DF
+    from triflow_jax.core import schemes as schemes_mod
+    from triflow_jax.ops.df64 import DF
 
     model = Model("k * dxxU", "U", "k", double="df64")
 
@@ -448,7 +382,7 @@ def test_df64_theta_step():
     step to the df64 class."""
     import jax
 
-    from triflow_tpu.ops.df64 import DF
+    from triflow_jax.ops.df64 import DF
 
     N, dt = 128, 0.25
     x = np.linspace(0, 10, N, endpoint=False)
@@ -485,7 +419,7 @@ def test_df64_erk_dopri5():
     dt is f32-representable so both paths integrate the same time grid."""
     import jax
 
-    from triflow_tpu.ops.df64 import DF
+    from triflow_jax.ops.df64 import DF
 
     N, dt, steps = 128, 0.00390625, 60   # dt = 1/256: exact in f32
     # AND inside the explicit stability bound dx^2/(2k) ~ 0.006
@@ -530,7 +464,7 @@ def test_df64_erk_adaptive_simulation():
     the 1e-8 target).  Adaptive df64 DOPRI5 with compensated=True through
     the full Simulation driver, checked against the exact
     discrete-operator solution."""
-    from triflow_tpu import Simulation
+    from triflow_jax import Simulation
 
     model = Model("k * dxxU - c * dxU", "U", ["k", "c"], double="df64")
     N = 128

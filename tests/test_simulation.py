@@ -1,5 +1,5 @@
 """Simulation-level integration tests, mirroring
-/root/reference/tests/test_simulation.py: heat equation under every scheme
+upstream tests/test_simulation.py: heat equation under every scheme
 with physics-limit assertions, Dirichlet-hook convergence, RuntimeError
 guards, repr/rerun/no-tmax/progress smoke, post-process pipeline — plus
 accuracy checks against the analytic solution and a scipy oracle."""
@@ -9,7 +9,7 @@ import functools as ft
 import numpy as np
 import pytest
 
-from triflow_tpu import Model, Simulation, schemes
+from triflow_jax import Model, Simulation, schemes
 
 
 @pytest.fixture(scope="module")
@@ -278,7 +278,7 @@ def test_device_time_stepping_theta(heat_model):
     lax.while_loop per output step (VERDICT r1: the host-loop formulation
     paid m+1 dispatches per accepted internal step), with the controller
     matching the analytic decay at tight tolerance."""
-    from triflow_tpu.core.schemes import DeviceTimeStepping
+    from triflow_jax.core.schemes import DeviceTimeStepping
 
     N = 64
     x, dx = np.linspace(0, 10, N, retstep=True, endpoint=False)

@@ -6,10 +6,10 @@ SURVEY.md §4)."""
 import pytest
 import numpy as np
 
-from triflow_tpu import Model, Simulation, schemes
+from triflow_jax import Model, Simulation, schemes
 
 
-# whole-module slow tier: interpret-mode kernel equivalence / physics
+# whole-module slow tier: the oracle-equivalence / physics
 # workloads are minutes-long on the virtual CPU mesh (CI fast lane skips
 # them; the full matrix runs nightly)
 pytestmark = pytest.mark.slow
@@ -179,7 +179,7 @@ def test_so_wavy_coupled_pair_oracle_and_symmetry():
 def test_duck_typed_manual_model():
     """Hand-written model (no symbolic layer): object with .F and
     fields_template stepping through scipy_ode (reference manual-2D path)."""
-    from triflow_tpu import factory
+    from triflow_jax import factory
 
     class Decay:
         fields_template = factory(("x",), [("u", ("x",))], [])

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Self-contained lint gate (no third-party linters in the TPU image).
+"""Self-contained lint gate (no third-party linters required).
 
 Checks every tracked Python file for:
 - syntax errors (compile)
@@ -19,7 +19,7 @@ import sys
 from pathlib import Path
 
 MAX_LINE = 99
-ROOTS = ["triflow_tpu", "tests", "examples", "tools", "bench.py",
+ROOTS = ["triflow_jax", "tests", "examples", "tools", "bench.py",
          "__graft_entry__.py"]
 # names imported for side effects or re-export
 ALLOW_UNUSED = {"annotations"}
